@@ -4,7 +4,7 @@
 .PHONY: native test bench docs clean
 
 native:
-	$(MAKE) -C libzseek_tpu/native
+	$(MAKE) -C libzseek_jax/native
 
 test: native
 	python -m pytest tests/ -q
@@ -14,14 +14,14 @@ bench: native
 
 docs:
 	mkdir -p build/docs
-	cd build/docs && for m in libzseek_tpu libzseek_tpu.api \
-	  libzseek_tpu.runtime.writer libzseek_tpu.runtime.reader \
-	  libzseek_tpu.runtime.zstd_codec libzseek_tpu.runtime.codec \
-	  libzseek_tpu.format.seek_table libzseek_tpu.parallel.mesh \
-	  libzseek_tpu.parallel.distributed; do \
+	cd build/docs && for m in libzseek_jax libzseek_jax.api \
+	  libzseek_jax.runtime.writer libzseek_jax.runtime.reader \
+	  libzseek_jax.runtime.zstd_codec libzseek_jax.runtime.codec \
+	  libzseek_jax.format.seek_table libzseek_jax.parallel.mesh \
+	  libzseek_jax.parallel.distributed; do \
 	  PYTHONPATH=$(CURDIR) JAX_PLATFORMS=cpu python -m pydoc -w $$m; \
 	done && ls *.html
 
 clean:
-	$(MAKE) -C libzseek_tpu/native clean
+	$(MAKE) -C libzseek_jax/native clean
 	rm -rf build

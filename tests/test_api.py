@@ -4,7 +4,7 @@ import io
 
 import numpy as np
 
-from libzseek_tpu import api
+from libzseek_jax import api
 
 
 def test_full_open_shims(rng):

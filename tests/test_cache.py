@@ -7,7 +7,7 @@ type errors by construction).
 
 import pytest
 
-from libzseek_tpu.runtime.cache import FrameCache
+from libzseek_jax.runtime.cache import FrameCache
 
 
 def test_new_rejects_bad_capacity():

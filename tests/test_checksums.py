@@ -9,11 +9,11 @@ import struct
 import numpy as np
 import pytest
 
-from libzseek_tpu.errors import FormatError
-from libzseek_tpu.format.xxhash import xxh64
-from libzseek_tpu.runtime.reader import Reader
-from libzseek_tpu.runtime.writer import Writer
-from libzseek_tpu.testing import golden
+from libzseek_jax.errors import FormatError
+from libzseek_jax.format.xxhash import xxh64
+from libzseek_jax.runtime.reader import Reader
+from libzseek_jax.runtime.writer import Writer
+from libzseek_jax.testing import golden
 
 
 def test_xxh64_vectors():

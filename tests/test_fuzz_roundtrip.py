@@ -13,9 +13,9 @@ import threading
 import numpy as np
 import pytest
 
-from libzseek_tpu.runtime.reader import Reader
-from libzseek_tpu.runtime.writer import Writer
-from libzseek_tpu.testing import golden
+from libzseek_jax.runtime.reader import Reader
+from libzseek_jax.runtime.writer import Writer
+from libzseek_jax.testing import golden
 
 
 def _patterned(rng, n):

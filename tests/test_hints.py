@@ -11,13 +11,13 @@ import io
 import numpy as np
 import pytest
 
-from libzseek_tpu.format import hints as H
-from libzseek_tpu.ops import zstd_decode as zd
-from libzseek_tpu.runtime.reader import Reader
-from libzseek_tpu.runtime.writer import Writer
-from libzseek_tpu.runtime.zstd_codec import ZstdCodec
-from libzseek_tpu.testing import golden
-from libzseek_tpu.testing.corpus import mixed_corpus, text_corpus
+from libzseek_jax.format import hints as H
+from libzseek_jax.ops import zstd_decode as zd
+from libzseek_jax.runtime.reader import Reader
+from libzseek_jax.runtime.writer import Writer
+from libzseek_jax.runtime.zstd_codec import ZstdCodec
+from libzseek_jax.testing import golden
+from libzseek_jax.testing.corpus import mixed_corpus, text_corpus
 
 
 @pytest.fixture(scope="module")

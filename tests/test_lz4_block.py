@@ -6,10 +6,10 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from libzseek_tpu.ops.lz4_encode import lz4_encode_blocks, lz4_compress_bound
-from libzseek_tpu.ops.lz4_decode import lz4_decode_blocks
-from libzseek_tpu.testing import golden
-from libzseek_tpu.testing.corpus import mixed_corpus, text_corpus
+from libzseek_jax.ops.lz4_encode import lz4_encode_blocks, lz4_compress_bound
+from libzseek_jax.ops.lz4_decode import lz4_decode_blocks
+from libzseek_jax.testing import golden
+from libzseek_jax.testing.corpus import mixed_corpus, text_corpus
 
 N = 16384
 pytestmark = pytest.mark.skipif(
@@ -120,18 +120,12 @@ def test_compress_bound():
     assert lz4_compress_bound(65536) >= 65536 + 16
 
 
-def test_host_decode_rejects_corrupt_blocks():
+def test_host_decode_rejects_corrupt_blocks(native_lib):
     """The native LZ4 host decoder must fail corrupt input (offset past
     the window start, truncated streams), not produce bytes."""
-    import pytest
+    from libzseek_jax.runtime.codec import LZ4Codec
 
-    from libzseek_tpu import native
-    from libzseek_tpu.errors import FormatError
-    from libzseek_tpu.runtime.codec import LZ4Codec
-    from libzseek_tpu.testing import golden
-
-    if not native.have_native():
-        pytest.skip("needs libzseek_native.so")
+    native = native_lib
     data = b"abcdefgh" * 4096
     codec = LZ4Codec()
     fr = codec.compress_frames([data])[0]

@@ -7,30 +7,15 @@ seek-table (de)serialization byte-for-byte.  Reference counterpart: the
 all-C host runtime of /root/reference/src/.
 """
 
-import subprocess
-import sys
-from pathlib import Path
-
 import numpy as np
 import pytest
 
-from libzseek_tpu import native
-from libzseek_tpu.format.seek_table import FrameLog
-from libzseek_tpu.ops import huffman
-from libzseek_tpu.testing.corpus import mixed_corpus, text_corpus
+from libzseek_jax import native
+from libzseek_jax.format.seek_table import FrameLog
+from libzseek_jax.ops import huffman
+from libzseek_jax.testing.corpus import mixed_corpus, text_corpus
 
-NATIVE_DIR = Path(__file__).resolve().parent.parent / "libzseek_tpu" / "native"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def built():
-    if not native.have_native():
-        r = subprocess.run(["make", "-sC", str(NATIVE_DIR)],
-                           capture_output=True, text=True)
-        if r.returncode != 0:
-            pytest.skip(f"native build unavailable: {r.stderr[-200:]}")
-        native._lib = None  # force re-probe
-    assert native.have_native()
+pytestmark = pytest.mark.usefixtures("native_lib")
 
 
 def _hists(rng):

@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from libzseek_tpu.ops.lz4_encode import lz4_encode_blocks
-from libzseek_tpu.parallel import mesh as PM
-from libzseek_tpu.testing.corpus import mixed_corpus
+from libzseek_jax.ops.lz4_encode import lz4_encode_blocks
+from libzseek_jax.parallel import mesh as PM
+from libzseek_jax.testing.corpus import mixed_corpus
 
 
 @pytest.fixture(scope="module")
@@ -60,7 +60,7 @@ def test_graft_dryrun_multichip():
 
 
 def test_distributed_gather_single_process(eight_devices):
-    from libzseek_tpu.parallel import distributed as D
+    from libzseek_jax.parallel import distributed as D
     m = PM.frame_mesh(eight_devices)
     payloads = np.arange(64, dtype=np.uint8).reshape(8, 8)
     lengths = np.arange(1, 9, dtype=np.int32)
@@ -73,29 +73,33 @@ def test_distributed_gather_single_process(eight_devices):
 def test_workers_round_robin_chain(eight_devices, rng):
     """Writer(workers=N): batches round-robin across N devices — the
     reference's nb_workers knob (/root/reference/src/zseek.h:136-139)
-    mapped to chips.  Runs the production device chain per batch on the
-    virtual CPU mesh and golden-verifies the archive."""
+    mapped to devices.  Each device must parse batches, and the archive
+    must be byte-identical to the workers=1 archive and golden-decode."""
     import io
 
-    from libzseek_tpu.runtime.reader import Reader
-    from libzseek_tpu.runtime.writer import Writer
-    from libzseek_tpu.runtime.zstd_codec import ZstdCodec
-    from libzseek_tpu.testing import golden
-    from libzseek_tpu.testing.corpus import mixed_corpus
+    from libzseek_jax.runtime.reader import Reader
+    from libzseek_jax.runtime.writer import Writer
+    from libzseek_jax.runtime.zstd_codec import ZstdCodec
+    from libzseek_jax.testing import golden
+    from libzseek_jax.testing.corpus import mixed_corpus
 
     data = mixed_corpus(rng, 2 << 20).tobytes()
-    codec = ZstdCodec(parser="linked", entropy="smem", workers=8,
-                      max_batch_blocks=8)
-    assert codec._devices is not None and len(codec._devices) == 8
-    buf = io.BytesIO()
-    w = Writer(buf, codec=codec, min_frame_size=1 << 18, batch_frames=2)
-    for pos in range(0, len(data), 300_000):
-        w.write(data[pos: pos + 300_000])
-    w.close()
-    arch = buf.getvalue()
-    assert codec._rr >= 2  # actually cycled devices
-    assert golden.zstd_decompress(arch) == data
-    r = Reader(arch)
+    archives, codecs = [], []
+    for workers in (8, 1):
+        codec = ZstdCodec(workers=workers, max_batch_blocks=2)
+        buf = io.BytesIO()
+        w = Writer(buf, codec=codec, min_frame_size=1 << 18,
+                   batch_frames=2)
+        for pos in range(0, len(data), 300_000):
+            w.write(data[pos: pos + 300_000])
+        w.close()
+        archives.append(buf.getvalue())
+        codecs.append(codec)
+    assert set(codecs[0].device_batches) == {d.id for d in eight_devices}
+    assert set(codecs[1].device_batches) == {jax.devices()[0].id}
+    assert archives[0] == archives[1]
+    assert golden.zstd_decompress(archives[0]) == data
+    r = Reader(archives[0])
     assert r.pread_full(64_000, 1_000_000) == data[1_000_000:1_064_000]
 
 

@@ -1,5 +1,5 @@
-"""Round-5 ratio-mode paths: 64 KiB blocks + dual-probe search at
-levels >= 4, and the full repcode rewrite (decoder-state simulation)."""
+"""Ratio paths: the full repcode rewrite (decoder-state simulation) and
+levels >= 4, which keep the format's full 128 KiB blocks."""
 
 from __future__ import annotations
 
@@ -9,11 +9,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from libzseek_tpu.api import Writer, Reader
-from libzseek_tpu.ops.zstd_encode import _rep1_rewrite
-from libzseek_tpu.runtime.io import BytesIOSource
-from libzseek_tpu.runtime.zstd_codec import ZstdCodec
-from libzseek_tpu.testing import golden
+from libzseek_jax.api import Writer, Reader
+from libzseek_jax.ops.zstd_encode import _rep1_rewrite
+from libzseek_jax.runtime.io import BytesIOSource
+from libzseek_jax.runtime.zstd_codec import ZstdCodec
+from libzseek_jax.testing import golden
 
 
 def _decoder_rep_resolve(out_offv, lls):
@@ -65,19 +65,20 @@ def test_rep_rewrite_matches_decoder_state():
     assert hits > S // 2, "rewrite found almost no repcodes on rep-heavy data"
 
 
-def test_level4_small_blocks_roundtrip():
-    """Level >= 4 codecs use 64 KiB blocks + the dual/lazy search: full
-    archive roundtrip through stock libzstd plus random preads."""
+def test_level4_full_blocks_roundtrip():
+    """Level >= 4 codecs keep 128 KiB blocks (the parser has no per-block
+    sequence cap that smaller blocks would work around): full archive
+    roundtrip through stock libzstd plus random preads."""
     rng = np.random.default_rng(9)
     base = np.frombuffer(b"def probe(self, x):\n    return x + 1\n",
                          np.uint8)
     piece = rng.choice(base, 200_000).astype(np.uint8).tobytes()
     data = piece * 3 + rng.integers(0, 256, 50_000, dtype=np.uint8).tobytes()
-    codec = ZstdCodec(level=4, parser="linked", entropy="smem")
-    assert codec.block == 65536
+    codec = ZstdCodec(level=4)
+    assert codec.block == 131072
     frames = codec.compress_frames([data])
     assert golden.zstd_decompress(b"".join(frames)) == data
-    # through the Writer/Reader stack (seek table spans 64K-block frames)
+    # through the Writer/Reader stack
     buf = io.BytesIO()
     w = Writer(buf, codec="zstd", level=4, min_frame_size=1 << 18)
     for p in range(0, len(data), 65536):
@@ -92,12 +93,11 @@ def test_level4_small_blocks_roundtrip():
         assert data[off: off + len(got)] == got and got
 
 
-def test_level4_beats_level3_on_source_text():
+def test_level4_no_worse_than_level3_on_source_text():
     # structured text = a finite pool of LINES in random order (the
-    # source-code regime: abundant 5-30 byte repeats at long distances);
-    # on iid character soup L4's extra matches rightly don't pay
+    # source-code regime: abundant 5-30 byte repeats at long distances),
     # every line unique (no whole-line matches) but dense in shared 5-15
-    # byte idioms — exactly where the 8-byte-hash-only L3 parse is blind
+    # byte idioms
     rng = np.random.default_rng(2)
     names = ["total", "value", "index", "offset", "result", "buffer"]
     lines = []
@@ -108,8 +108,8 @@ def test_level4_beats_level3_on_source_text():
                      f" = compute_{b}(x_{int(rng.integers(0, 10 ** 6))})\n"
                      .encode())
     data = b"".join(lines)
-    s3 = sum(len(f) for f in ZstdCodec(
-        level=3, parser="linked", entropy="smem").compress_frames([data]))
-    s4 = sum(len(f) for f in ZstdCodec(
-        level=4, parser="linked", entropy="smem").compress_frames([data]))
-    assert s4 < s3, (s4, s3)
+    f3 = ZstdCodec(level=3).compress_frames([data])
+    f4 = ZstdCodec(level=4).compress_frames([data])
+    assert golden.zstd_decompress(b"".join(f4)) == data
+    s3, s4 = sum(map(len, f3)), sum(map(len, f4))
+    assert s4 <= s3, (s4, s3)

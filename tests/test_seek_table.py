@@ -4,8 +4,8 @@ with archives whose payload frames come from stock libzstd/liblz4."""
 import numpy as np
 import pytest
 
-from libzseek_tpu.format import seek_table as st
-from libzseek_tpu.testing import golden
+from libzseek_jax.format import seek_table as st
+from libzseek_jax.testing import golden
 
 
 def make_table(sizes):

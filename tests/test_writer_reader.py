@@ -6,13 +6,13 @@ import io
 import numpy as np
 import pytest
 
-from libzseek_tpu import (Reader, Writer, open_reader, zseek_pread,
+from libzseek_jax import (Reader, Writer, open_reader, zseek_pread,
                           zseek_read, zseek_writer_close, zseek_writer_open)
-from libzseek_tpu.errors import ZseekError
-from libzseek_tpu.format.seek_table import parse_seek_table_bytes
-from libzseek_tpu.runtime.io import CountingSink
-from libzseek_tpu.testing import golden
-from libzseek_tpu.testing.corpus import mixed_corpus
+from libzseek_jax.errors import ZseekError
+from libzseek_jax.format.seek_table import parse_seek_table_bytes
+from libzseek_jax.runtime.io import CountingSink
+from libzseek_jax.testing import golden
+from libzseek_jax.testing.corpus import mixed_corpus
 
 FRAME = 1 << 16  # small frames keep CPU tests fast
 
@@ -22,7 +22,7 @@ def archive(rng):
     rng = np.random.default_rng(21)
     raw = mixed_corpus(rng, 300_000).tobytes()
     buf = io.BytesIO()
-    from libzseek_tpu.runtime.io import FileIO
+    from libzseek_jax.runtime.io import FileIO
     w = Writer(FileIO(buf), "lz4", min_frame_size=FRAME, batch_frames=3)
     # mixed write sizes: tiny (coalesced), huge (direct path)
     w.write(raw[:1000])

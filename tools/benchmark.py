@@ -29,9 +29,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from libzseek_tpu.utils.platform import apply_platform
+from libzseek_jax.utils.compile_cache import enable_compile_cache
 
-apply_platform()
+enable_compile_cache()
 
 import numpy as np
 
@@ -48,7 +48,7 @@ class CountingSink:
 
 def load_input(args) -> bytes:
     if args.synthetic:
-        from libzseek_tpu.testing.corpus import mixed_corpus
+        from libzseek_jax.testing.corpus import mixed_corpus
         rng = np.random.default_rng(11)
         return mixed_corpus(rng, args.synthetic << 20).tobytes()
     with open(args.file, "rb") as f:
@@ -57,7 +57,7 @@ def load_input(args) -> bytes:
 
 def bench_compress(data: bytes, codec: str, workers: int, frame_mib: int,
                    chunk: int, terse: bool):
-    from libzseek_tpu.runtime.writer import Writer
+    from libzseek_jax.runtime.writer import Writer
 
     # compile warm-up: run the same shapes once so the measurement sees
     # steady state, not executable builds (bench.py does the same; the
@@ -116,8 +116,8 @@ def bench_compress(data: bytes, codec: str, workers: int, frame_mib: int,
 def bench_pread(data: bytes, codec: str, frame_mib: int, terse: bool):
     import io
 
-    from libzseek_tpu.runtime.reader import Reader
-    from libzseek_tpu.runtime.writer import Writer
+    from libzseek_jax.runtime.reader import Reader
+    from libzseek_jax.runtime.writer import Writer
 
     buf = io.BytesIO()
     w = Writer(buf, codec=codec, min_frame_size=frame_mib << 20)

@@ -20,11 +20,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from libzseek_tpu.utils.platform import apply_platform
+from libzseek_jax.utils.compile_cache import enable_compile_cache
 
-apply_platform()
+enable_compile_cache()
 
-from libzseek_tpu import open_reader, open_writer
+from libzseek_jax import open_reader, open_writer
 
 CHUNK_SIZE = 4096          # example.c:13
 MIN_FRAME_SIZE = 1 << 20   # example.c:14

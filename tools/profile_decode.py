@@ -1,4 +1,5 @@
-"""Stage-level timing of the zstd decode path on the live TPU."""
+"""Wall time of the zstd decode path (with and without decode hints) on
+the default JAX device."""
 
 from __future__ import annotations
 
@@ -8,14 +9,14 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from libzseek_tpu.utils.platform import apply_platform
+from libzseek_jax.utils.compile_cache import enable_compile_cache
 
-apply_platform()
+enable_compile_cache()
 
 import numpy as np
 
-from libzseek_tpu.runtime.zstd_codec import ZstdCodec
-from libzseek_tpu.testing.corpus import mixed_corpus
+from libzseek_jax.runtime.zstd_codec import ZstdCodec
+from libzseek_jax.testing.corpus import mixed_corpus
 
 
 def main():

@@ -20,14 +20,14 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from libzseek_tpu.utils.platform import apply_platform
+from libzseek_jax.utils.compile_cache import enable_compile_cache
 
-apply_platform()
+enable_compile_cache()
 
 import numpy as np
 
-from libzseek_tpu.runtime.zstd_codec import ZstdCodec
-from libzseek_tpu.testing import golden
+from libzseek_jax.runtime.zstd_codec import ZstdCodec
+from libzseek_jax.testing import golden
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FROZEN = os.path.join(ROOT, "bench_results", "corpus_source_r5.bin")
@@ -37,7 +37,7 @@ def corpus(reps: int) -> bytes:
     if os.path.exists(FROZEN):
         uniq = open(FROZEN, "rb").read()
     else:
-        files = sorted(glob.glob(os.path.join(ROOT, "libzseek_tpu",
+        files = sorted(glob.glob(os.path.join(ROOT, "libzseek_jax",
                                               "**", "*.py"),
                                  recursive=True))
         uniq = b"".join(open(f, "rb").read() for f in files)

@@ -19,13 +19,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from libzseek_tpu.utils.platform import apply_platform
+from libzseek_jax.utils.compile_cache import enable_compile_cache
 
-apply_platform()
+enable_compile_cache()
 
-from libzseek_tpu.runtime.zstd_codec import ZstdCodec
-from libzseek_tpu.testing import golden
-from libzseek_tpu.testing.corpus import mixed_corpus, text_corpus
+from libzseek_jax.runtime.zstd_codec import ZstdCodec
+from libzseek_jax.testing import golden
+from libzseek_jax.testing.corpus import mixed_corpus, text_corpus
 
 
 def regimes(rng, n):
